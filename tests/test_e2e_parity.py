@@ -21,6 +21,7 @@ from zklaim_tpu.claims import signing
 from zklaim_tpu.claims.api import (
     Context,
     Payload,
+    ZKLAIM_ERROR,
     ZKLAIM_INVALID_PROOF,
     ZKLAIM_INVALID_SIGNATURE,
     ZKLAIM_OK,
@@ -28,14 +29,17 @@ from zklaim_tpu.claims.api import (
 )
 
 # The real SHA256 credential circuit (~28k constraints, 25k vars) is
-# TPU-scale work; on the CPU test platform a single prove takes tens of
-# minutes.  Run with ZKLAIM_TEST_PLATFORM=tpu (or ZKLAIM_E2E=1 to force
-# on CPU).  The driver's default `pytest tests/` stays green and fast.
-pytestmark = pytest.mark.skipif(
-    jax.default_backend() == "cpu" and not os.environ.get("ZKLAIM_E2E"),
-    reason="full-circuit Groth16 E2E needs the TPU (ZKLAIM_TEST_PLATFORM=tpu) "
-    "or ZKLAIM_E2E=1",
-)
+# accelerator-scale work; on the CPU test platform a single prove takes
+# tens of minutes.  Run with ZKLAIM_TEST_PLATFORM=gpu (or ZKLAIM_E2E=1 to
+# force it on the CPU).  The default `pytest tests/` stays fast.
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _accelerator():
+    if jax.default_backend() == "cpu" and not os.environ.get("ZKLAIM_E2E"):
+        pytest.skip("full-circuit Groth16 E2E needs a GPU "
+                    "(ZKLAIM_TEST_PLATFORM=gpu) or ZKLAIM_E2E=1")
 
 SEED = 20260818
 

@@ -1,4 +1,4 @@
-"""Batched TPU Jacobian point ops vs the host golden model (G1 and G2)."""
+"""Batched device point ops vs the host golden model (G1 and G2)."""
 
 import pytest
 

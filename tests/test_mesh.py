@@ -1,5 +1,5 @@
 """Multi-host plumbing: init_distributed resolution + make_host_mesh
-grouping (VERDICT r4: these had zero tests).
+grouping.
 
 jax.distributed.initialize is monkeypatched -- the semantics under test
 are the argument/env resolution and device grouping, not JAX's own
@@ -22,7 +22,7 @@ def _reset_dist_state():
 
 def test_init_distributed_noop_without_config(monkeypatch):
     for var in ("ZKLAIM_COORDINATOR", "ZKLAIM_NUM_PROCESSES",
-                "ZKLAIM_PROCESS_ID", "TPU_WORKER_HOSTNAMES"):
+                "ZKLAIM_PROCESS_ID"):
         monkeypatch.delenv(var, raising=False)
     called = []
     monkeypatch.setattr(
@@ -69,20 +69,18 @@ def test_init_distributed_env_resolution(monkeypatch):
 
 
 def test_init_distributed_pod_autodetect(monkeypatch):
-    """TPU_WORKER_HOSTNAMES present -> autodetect path calls initialize
-    with whatever (None) args so jax can self-configure."""
+    """There is no autodetection: cluster variables of any platform do
+    not start a process group; only explicit configuration does."""
     for var in ("ZKLAIM_COORDINATOR", "ZKLAIM_NUM_PROCESSES",
                 "ZKLAIM_PROCESS_ID"):
         monkeypatch.delenv(var, raising=False)
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "w0,w1")
+    monkeypatch.setenv("SLURM_NTASKS", "2")
     called = []
     monkeypatch.setattr(
         jax.distributed, "initialize", lambda **kw: called.append(kw)
     )
-    assert MESH.init_distributed() is True
-    assert called == [
-        {"coordinator_address": None, "num_processes": None, "process_id": None}
-    ]
+    assert MESH.init_distributed() is False
+    assert called == []
 
 
 class _FakeDev:

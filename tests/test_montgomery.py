@@ -1,4 +1,4 @@
-"""Known-answer tests: batched TPU limb/Montgomery kernels vs Python ints."""
+"""Known-answer tests: batched limb/Montgomery device code vs Python ints."""
 
 import random
 

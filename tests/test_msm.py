@@ -7,8 +7,8 @@ Two device paths are covered (see pippenger.msm dispatch):
   - msm_flat (the flat single-sort pipeline): its traced graph grows
     with W*N and XLA:CPU takes tens of minutes on it, so on CPU its
     numerics are checked EAGERLY here and the compiled program is
-    exercised by the tpu-marked tests below (make test-tpu) and by
-    bench.py / the Groth16 suite on real hardware.
+    exercised by the gpu-marked tests below (make test-gpu) and by
+    chip_smoke.py on the GPU.
 """
 
 import contextlib
@@ -124,7 +124,7 @@ def test_msm_dispatch_threshold(rng, monkeypatch):
     assert _to_host(JC.FQ_OPS, out) == want
 
 
-# --- flat pipeline numerics (eager on CPU; compiled covered on TPU) -----
+# --- flat pipeline numerics (eager on CPU; compiled covered on GPU) -----
 
 @pytest.mark.slow
 @pytest.mark.parametrize("c", [4, 8])
@@ -186,9 +186,8 @@ def test_scalar_mul_batched(rng):
 
 
 @pytest.mark.slow
-def test_msm_flat_pallas_path_matches(rng, monkeypatch):
-    """The fused Pallas path (interpret mode on CPU) == XLA path."""
-    monkeypatch.setenv("ZKLAIM_MSM_PALLAS", "1")
+def test_msm_flat_pallas_path_matches(rng):
+    """The point kernels' arithmetic (host build on CPU) == XLA path."""
     n = 16
     gen = g1_generator()
     points = [gen * rng.randrange(1, R) for _ in range(n)]
@@ -197,21 +196,18 @@ def test_msm_flat_pallas_path_matches(rng, monkeypatch):
     jac = JC.host_points_to_proj(JC.FQ_OPS, points)
     limbs = jnp.asarray(ints_to_limbs(scalars))
     with _flat_ctx():
-        out = P.msm_flat(JC.FQ_OPS, jac, limbs, 8)
+        out = P.msm_flat(JC.FQ_OPS, jac, limbs, 8, "host")
     assert _to_host(JC.FQ_OPS, out) == want
 
 
-# --- compiled flat pipeline on real hardware ----------------------------
+# --- compiled flat pipeline on the GPU ----------------------------------
 
 
-@pytest.mark.tpu
+@pytest.mark.gpu
 @pytest.mark.parametrize("deg,c,n", [(1, 8, 1 << 10), (2, 4, 1 << 9)])
-def test_msm_flat_compiled_tpu(rng, deg, c, n):
+def test_msm_flat_compiled_gpu(gpu, rng, deg, c, n):
     """The JITTED flat pipeline (the program bench.py measures) is
-    correct on hardware; guards against Mosaic/layout regressions like
-    the r3 G2 crash (ec/pallas_curve.py)."""
-    if jax.default_backend() != "tpu":
-        pytest.skip("needs real TPU")
+    correct on the GPU with the compiled point kernels."""
     f = JC.FQ_OPS if deg == 1 else JC.FQ2_OPS
     gen = g1_generator() if deg == 1 else g2_generator()
     points = [gen * rng.randrange(1, R) for _ in range(4)]
@@ -221,5 +217,5 @@ def test_msm_flat_compiled_tpu(rng, deg, c, n):
     want = host_msm(reps, scalars)
     jac = JC.host_points_to_proj(f, reps)
     limbs = jnp.asarray(ints_to_limbs(scalars))
-    out = jax.jit(P.msm_flat, static_argnums=(0, 3))(f, jac, limbs, c)
+    out = jax.jit(P.msm_flat, static_argnums=(0, 3, 4))(f, jac, limbs, c, "kernel")
     assert _to_host(f, out) == want

@@ -8,11 +8,13 @@ import pytest
 from zklaim_tpu.claims import signing as S
 from zklaim_tpu.utils import native
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="native library not built (make -C native)"
-)
-
 import os
+
+
+@pytest.fixture(autouse=True)
+def _library():
+    """The library builds from source at first use; the tests need it."""
+    assert native.available(), "native library failed to build (make -C native)"
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 

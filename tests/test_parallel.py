@@ -14,10 +14,12 @@ from zklaim_tpu.msm.pippenger import msm
 from zklaim_tpu.parallel.mesh import make_mesh
 from zklaim_tpu.parallel.msm import sharded_msm
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8,
-    reason="needs the 8-device virtual CPU mesh (default test platform)",
-)
+
+
+@pytest.fixture(autouse=True)
+def _eight_devices():
+    if len(jax.devices()) < 8:
+        pytest.skip("needs the 8-device virtual CPU mesh (default test platform)")
 
 
 def test_mesh_has_8_virtual_devices():

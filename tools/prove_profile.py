@@ -1,7 +1,9 @@
-"""Phase-level timing of the warm Groth16 prover (r5 perf work).
+"""Phase-level timing of the warm Groth16 prover on the N=1 credential.
 
 Times: witness build, h_pipeline (witness map + NTTs), each of the five
-MSMs, device->host point decode, host finishing.  Run on the real TPU.
+MSMs, device->host point decode, and the verifier.  GPU only:
+
+    python tools/prove_profile.py
 """
 
 from __future__ import annotations
@@ -12,20 +14,24 @@ import time
 
 sys.path.insert(0, ".")
 
+from zklaim_tpu.utils.device import gpu_name_and_power, require_gpu
 from zklaim_tpu.utils.jaxconfig import setup_cache
 
-setup_cache()
-
-import numpy as np
 import jax
 import jax.numpy as jnp
 
 
+def _start(prog):
+    info = require_gpu(prog)
+    setup_cache()
+    print(f"{prog}: {info} | {gpu_name_and_power()}", flush=True)
+
+
 def main():
+    _start("prove_profile")
     from zklaim_tpu.claims.api import Context, Payload, ZKLAIM_OK, ZkOp
     from zklaim_tpu.claims.circuit import ZKlaimCircuit
     from zklaim_tpu.ec import jaxcurve as JC
-    from zklaim_tpu.ff import montgomery as M
     from zklaim_tpu.groth16 import api as A
     from zklaim_tpu.groth16.api import h_pipeline, setup, verify
     from zklaim_tpu.msm.pippenger import msm_pow2
@@ -42,8 +48,7 @@ def main():
     pk, vk, qap = setup(circ.cs, rng)
     inputs = [(p.pre, p.data_ref, p.op_positions()) for p in ctx.payloads]
 
-    def sync_pt(p):
-        np.asarray(jax.device_get(jax.tree.leaves(p)[0]).ravel()[:4])
+    sync_pt = jax.block_until_ready
 
     # warmup (compiles)
     w = circ.witness(inputs)
@@ -63,8 +68,8 @@ def main():
         mark("witness build (host)")
         w_plain = jnp.asarray(A.witness_plain_limbs(w))
         mark("witness limbs -> device")
-        h_plain, n_bad = h_pipeline(qap)(w_plain)
-        np.asarray(jax.device_get(h_plain[:1, :4]))
+        w_pad = jnp.pad(w_plain, ((0, qap.num_vars_pad - qap.num_vars), (0, 0)))
+        h_plain, n_bad = jax.block_until_ready(h_pipeline(qap)(w_pad))
         mark("h_pipeline (wmap+NTTs)")
         ev_a = msm_pow2(JC.FQ_OPS, pk.a_g1, w_plain, 8); sync_pt(ev_a)
         mark("msm A")

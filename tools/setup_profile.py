@@ -1,9 +1,11 @@
-"""Phase-level timing of the Groth16 trusted setup (VERDICT r4 item 7).
+"""Phase-level timing of the Groth16 trusted setup.
 
 Rebuilds groth16.api.setup step by step on the real N-payload zklaim
 credential circuit and prints a wall-clock breakdown: circuit build,
 QAP/COO prep, host instance map (lagrange + eval_at_tau), scalar prep,
-each device fixed-base table, and host point decode.
+each device fixed-base table, and host point decode.  GPU only:
+
+    python tools/setup_profile.py --payloads 1
 """
 
 from __future__ import annotations
@@ -15,22 +17,26 @@ import time
 
 sys.path.insert(0, ".")
 
+from zklaim_tpu.utils.device import gpu_name_and_power, require_gpu
 from zklaim_tpu.utils.jaxconfig import setup_cache
 
-setup_cache()
-
 import jax
-import numpy as np
+
+
+def _start(prog):
+    info = require_gpu(prog)
+    setup_cache()
+    print(f"{prog}: {info} | {gpu_name_and_power()}", flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--payloads", type=int, default=1)
     args = ap.parse_args()
+    _start("setup_profile")
 
     from zklaim_tpu.claims.circuit import ZKlaimCircuit
     from zklaim_tpu.ec import jaxcurve as JC
-    from zklaim_tpu.ec.hostcurve import g1_generator, g2_generator
     from zklaim_tpu.ff.params import R
     from zklaim_tpu.groth16 import api as A
     from zklaim_tpu.groth16.qap import QAP

@@ -1,6 +1,6 @@
 """zklaim credential/claim API: payloads, contexts, wire format.
 
-TPU-native replacement for the reference's C credential core
+Replacement for the reference's C credential core
 (zklaim/zklaim.h, zklaim/zklaim.c).  API and byte-level behavior mirror
 the reference one-for-one:
 

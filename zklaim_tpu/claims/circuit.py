@@ -1,6 +1,6 @@
 """The zklaim predicate circuit.
 
-TPU-native replacement for the reference's zklaim_gadget
+Replacement for the reference's zklaim_gadget
 (zklaim/zklaim_gadget.cpp:154-783) and zklaim_input_map (:116-148).
 Semantics follow SURVEY.md §2.3 exactly:
 

@@ -1,6 +1,6 @@
 """Issuer signatures: ECDSA over the Ed25519 curve (gcrypt-compatible).
 
-TPU-native replacement for the reference's libgcrypt signing layer
+Replacement for the reference's libgcrypt signing layer
 (zklaim/zklaim_ecc.c).  The reference generates an Ed25519 ECC key
 (zklaim_ecc.c:216) but signs with `(data (flags raw) (value <sha256>))`
 (zklaim_ecc.c:43) WITHOUT the eddsa flag, so gcrypt runs its generic

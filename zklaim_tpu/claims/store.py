@@ -4,7 +4,7 @@ The reference realizes checkpoint/resume as full serialization -- pk/vk
 stream export/import and the context wire format; main.c:126-138
 sketches writing vk/pk to disk so issuer/prover/verifier can be separate
 processes (SURVEY.md §5 "Checkpoint / resume").  This module is that
-capability for the TPU framework: atomic save/load of the serde byte
+capability of this framework: atomic save/load of the serde byte
 formats, so keys generated on one host are loadable on any other
 (arrays are rebuilt on whatever devices the loader has).
 """

@@ -2,7 +2,7 @@
 
 Generic short-Weierstrass arithmetic over any field of the zklaim_tpu.ff
 tower (Fq, Fq2, Fq12).  This is the exactness reference for the batched
-TPU point kernels (zklaim_tpu/ec/jaxcurve.py) and the production path for
+device point code (zklaim_tpu/ec/jaxcurve.py) and the production path for
 single-point work (generator table construction, verification).
 
 Replaces libff's alt_bn128_G1/alt_bn128_G2 used by the reference through
@@ -225,7 +225,7 @@ class CurvePoint:
     """Affine point (or infinity) on y^2 = x^3 + b over a generic field.
 
     Affine representation keeps the golden model dead simple; performance-
-    critical batched arithmetic lives on the TPU side in Jacobian form.
+    critical batched arithmetic lives on the device side in projective form.
     """
 
     __slots__ = ("x", "y", "inf", "b")

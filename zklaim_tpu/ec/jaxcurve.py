@@ -1,4 +1,4 @@
-"""Batched projective elliptic-curve arithmetic on TPU (BN254 G1 and G2).
+"""Batched projective elliptic-curve arithmetic in XLA (BN254 G1 and G2).
 
 Points are pytrees (X, Y, Z) of Montgomery-domain limb arrays in
 homogeneous projective coordinates; G1 coordinates are Fq elements of
@@ -7,7 +7,7 @@ Infinity is (0, 1, 0) (any (0, y!=0, 0) decodes as infinity).
 
 Group law: the *complete* addition/doubling formulas of Renes-Costello-
 Batina 2016 for a=0 short-Weierstrass curves (add: 12M + 2 mul-by-3b,
-dbl: 8M + 1 mul-by-3b).  Complete formulas are the TPU-native choice:
+dbl: 8M + 1 mul-by-3b).  Complete formulas suit batched devices:
 one branch-free dataflow handles every input combination (P=Q, P=-Q,
 either infinity) with NO masks and NO second formula path, so the op is
 safe as a combiner in data-dependent reductions (MSM bucket sums) and
@@ -19,7 +19,7 @@ Independent field multiplications are stacked into single mont_mul calls
 both compile time (~2k StableHLO lines vs ~8k for masked Jacobian) and
 runtime (fewer, wider kernels) down.
 
-TPU-native replacement for libff alt_bn128_G1/G2 arithmetic
+Replacement for libff alt_bn128_G1/G2 arithmetic
 (SURVEY.md §2.6 rows 1-2).
 """
 

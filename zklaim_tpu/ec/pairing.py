@@ -2,7 +2,7 @@
 
 The verifier's pairing-product check is inherently scalar, latency-bound
 work (4 pairings per Groth16 verification) and is therefore implemented on
-the host, while the throughput-bound primitives (MSM, NTT) run on TPU.
+the host, while the throughput-bound primitives (MSM, NTT) run on the device.
 
 Production path (ms-class, matching the reference verifier's C++ speed
 class, zklaim/snark.cpp:53-62):

@@ -1,12 +1,12 @@
 """Host-side (Python int) golden-model field arithmetic for BN254.
 
-This is the exact reference model against which every TPU kernel in
+This is the exact reference model against which every device kernel in
 zklaim_tpu.ff.limbs / zklaim_tpu.ff.montgomery is tested, and it is also the
 production path for inherently scalar work (pairing-based verification,
 trusted-setup toxic-waste sampling) where a 254-bit Python int beats a
 vectorized kernel on latency.
 
-Replaces (TPU-first, not a translation): libff's Fp_model/Fp2/Fp6_3over2/
+Replaces (accelerator-first, not a translation): libff's Fp_model/Fp2/Fp6_3over2/
 Fp12_2over3over2 used by the reference via libsnark (see SURVEY.md L1).
 
 Tower construction (matching alt_bn128):

@@ -1,16 +1,16 @@
-"""Multi-limb big-integer representation for TPU field kernels.
+"""Multi-limb big-integer representation for the device field code.
 
 Layout: little-endian base-2**16 limbs held in uint32, trailing axis of
-length NUM_LIMBS (16) => 256 bits per element.  The 16-bit limb width is
-chosen for the TPU VPU: a 16x16-bit product fits exactly in a uint32
-(max (2^16-1)^2 < 2^32), and lo/hi split accumulators stay below 2^32 for
-the full schoolbook/CIOS inner loop without intermediate carry passes
-(lazy-carry bound analysis in montgomery.py).
+length NUM_LIMBS (16) => 256 bits per element.  With 16-bit limbs a
+16x16-bit product fits exactly in a uint32 (max (2^16-1)^2 < 2^32), and
+lo/hi split accumulators stay below 2^32 for the full schoolbook/CIOS
+inner loop without intermediate carry passes (lazy-carry bound analysis
+in montgomery.py).  Every computation stays in 32-bit integer lanes.
 
 This file has the representation plumbing + raw (non-modular) helpers;
 modular/Montgomery arithmetic lives in montgomery.py.
 
-TPU-native replacement for GMP/libff bigint (SURVEY.md §2.6 row 1).
+Replacement for GMP/libff bigint (SURVEY.md §2.6 row 1).
 """
 
 from __future__ import annotations

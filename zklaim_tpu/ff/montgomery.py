@@ -1,4 +1,4 @@
-"""Batched Montgomery field arithmetic over BN254 Fq / Fr for TPU.
+"""Batched Montgomery field arithmetic over BN254 Fq / Fr in XLA.
 
 All functions are pure, jit-able, and vectorized over arbitrary leading
 batch axes; the trailing axis is the 16-limb base-2^16 representation
@@ -6,7 +6,7 @@ batch axes; the trailing axis is the 16-limb base-2^16 representation
 R = 2^256) on device; conversion happens only at host boundaries.
 
 Algorithm: full-width SOS/REDC Montgomery multiplication, reformulated
-for XLA/TPU:
+for XLA:
 
   T  = a * b                      (31-limb lazy product)
   m  = (T mod R) * (-p^-1 mod R)  (low 16 limbs only)
@@ -30,8 +30,8 @@ Lazy-carry bounds (everything in uint32):
   - T + m*p limbs are < 2^22.
 Carry chains (16 sequential shift+adds) run only three times per multiply.
 
-TPU-native replacement for libff's Fp_model Montgomery arithmetic
-(reference reaches it via libsnark; see SURVEY.md §2.6 row 1).
+Replacement for libff's Fp_model Montgomery arithmetic (reference
+reaches it via libsnark; see SURVEY.md §2.6 row 1).
 """
 
 from __future__ import annotations
@@ -155,27 +155,6 @@ def mont_mul(spec: FieldSpec, a, b):
     return _cond_sub_p(spec, canon)
 
 
-def mont_mul_bulk(spec: FieldSpec, a, b):
-    """mont_mul with large 2-D (N, 16) batches routed through the fused
-    Pallas kernel on TPU (~50x the XLA lowering, measured 410 ns/elem ->
-    <8; see ntt/pallas_ntt.py).  Any other shape/backend falls back to
-    the XLA path.  Semantics identical."""
-    if a.ndim == 2 and b.shape == a.shape and a.shape[0] >= 4096:
-        from ..ntt import pallas_ntt as PN
-
-        if PN.use_pallas():
-            n = a.shape[0]
-            # pad to a whole number of kernel lane tiles (0*0 = 0);
-            # bulk_mul's grid drops remainder lanes otherwise
-            n2 = -(-n // PN.LANES) * PN.LANES
-            if n2 != n:
-                a = jnp.pad(a, ((0, n2 - n), (0, 0)))
-                b = jnp.pad(b, ((0, n2 - n), (0, 0)))
-            out = PN.mont_mul_aos(spec, a, b)
-            return out[:n] if n2 != n else out
-    return mont_mul(spec, a, b)
-
-
 def add_mod(spec: FieldSpec, a, b):
     """(a + b) mod p, canonical in/out."""
     canon, _carry = carry_canonical(a.astype(U32) + b.astype(U32))
@@ -245,9 +224,9 @@ def mont_pow_bits(spec: FieldSpec, a, exp_bits: np.ndarray):
     def body(i, carry):
         acc, base = carry
         bit = bits[i]
-        mul = mont_mul_bulk(spec, acc, base)
+        mul = mont_mul(spec, acc, base)
         acc = select(bit == 1, mul, acc)
-        base = mont_mul_bulk(spec, base, base)
+        base = mont_mul(spec, base, base)
         return acc, base
 
     acc, _ = lax.fori_loop(0, int(len(exp_bits)), body, (one, a))
@@ -270,13 +249,13 @@ def mont_inv(spec: FieldSpec, a):
 def to_mont(spec: FieldSpec, x):
     """Canonical limbs (plain domain) -> Montgomery domain."""
     r2 = jnp.broadcast_to(jnp.asarray(spec.r2_limbs), x.shape).astype(U32)
-    return mont_mul_bulk(spec, x, r2)
+    return mont_mul(spec, x, r2)
 
 
 def from_mont(spec: FieldSpec, x):
     """Montgomery domain -> plain domain limbs."""
     one = jnp.zeros_like(x).at[..., 0].set(1)
-    return mont_mul_bulk(spec, x, one)
+    return mont_mul(spec, x, one)
 
 
 def encode_ints(spec: FieldSpec, xs) -> np.ndarray:

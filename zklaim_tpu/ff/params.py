@@ -1,6 +1,6 @@
 """BN254 (ALT_BN128) curve and field parameters.
 
-TPU-native re-design of the algebra layer that the reference delegates to
+Re-design of the algebra layer that the reference delegates to
 libff/libsnark (reference: /root/reference/CMakeLists.txt:11-17 selects
 CURVE_ALT_BN128; zklaim/libsnark_wrapper.cpp:20 fixes ppT to the default
 r1cs_ppzksnark_pp which is alt_bn128).

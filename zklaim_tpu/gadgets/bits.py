@@ -1,6 +1,6 @@
 """Bit-level gadget primitives: booleans, packing, XOR/AND/Ch/Maj, decompose.
 
-TPU-native replacement for libsnark gadgetlib1 basic gadgets
+Replacement for libsnark gadgetlib1 basic gadgets
 (packing_gadget / multipacking_gadget and the boolean plumbing the
 SHA256 gadget is built from; used by the reference via
 zklaim/zklaim_gadget.cpp:18-19,357-362).

@@ -1,6 +1,6 @@
 """n-bit comparison gadget: (less, less_or_eq) flags for a vs b.
 
-TPU-native replacement for libsnark gadgetlib1's comparison_gadget (the
+Replacement for libsnark gadgetlib1's comparison_gadget (the
 reference instantiates width-64 comparisons per attribute slot at
 zklaim/zklaim_gadget.cpp:371,499-539; SURVEY.md §2.3 item "Comparison
 machinery").

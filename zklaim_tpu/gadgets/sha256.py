@@ -1,6 +1,6 @@
 """SHA256 compression-function gadget over R1CS.
 
-TPU-native replacement for libsnark's sha256_compression_function_gadget
+Replacement for libsnark's sha256_compression_function_gadget
 + SHA256_default_IV (used by the reference circuit at
 zklaim/zklaim_gadget.cpp:476-497; semantics per SURVEY.md §2.3: one
 compression application over block = 384 preimage bits || 128 fixed

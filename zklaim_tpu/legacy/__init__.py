@@ -5,5 +5,5 @@ from its build but define optional capabilities: Lamport one-time
 signatures, a SHA256 Merkle tree, pre-gcrypt OpenSSL ECDSA over
 secp256k1, an object-oriented credential model, and the original
 proof-of-concept single-preimage circuit.  This package provides
-TPU-framework-native equivalents with the same observable behavior.
+Framework-native equivalents with the same observable behavior.
 """

@@ -9,8 +9,8 @@ Method (comb): precompute T[w][d] = d * 2^(cw) * G on the host for all
 windows w < 256/c and digits d < 2^c (one-time, ~8k host point adds,
 ~1.5 MiB for G1 at c=8).  Then s*G = sum_w T[w][digit_w(s)]: on device
 this is a fori_loop of 32 gathers + batched complete point-adds -- a
-tiny XLA graph (the naive 256-step double-and-add ladder compiled for
-223 s on the TPU backend and did 16x more field work).
+small graph with 16x less field work than a 256-step double-and-add
+ladder.
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ from jax import lax
 
 from ..ec import jaxcurve as JC
 from ..ec.hostcurve import CurvePoint, g1_generator, g2_generator
-from ..ff.limbs import LIMB_BITS, NUM_LIMBS
+from ..ff.limbs import LIMB_BITS
+from ..kernels import curve_impl
 
 
 class FixedBaseTable:
@@ -51,19 +52,13 @@ class FixedBaseTable:
             lambda a: a.reshape((self.windows, 1 << c) + a.shape[1:]), dev
         )
 
-    def mul(self, scalars):
+    def mul(self, scalars, impl: str = "xla"):
         """(k, 16) plain u32 limbs -> point batch (k,). Jittable.
 
         The comb rounds run on struct-of-arrays limb planes through the
-        fused Pallas complete-add (31 ns/lane) instead of the XLA
-        point_add lowering (~24 muls x 410 ns/lane through HBM) -- the
-        r4 profile put 3.5 s per 32k-scalar call on this loop; the
-        fused path is ~50x less field-op time."""
+        batched complete add chosen by `impl` (zklaim_tpu/kernels.py)."""
         from .pippenger import (
-            _pack_rows,
-            _plane_add,
-            _planes_to_point,
-            _unpack_planes,
+            _pack_rows, _plane_add, _plane_infinity, _planes_to_point,
         )
 
         c, W = self.c, self.windows
@@ -82,21 +77,14 @@ class FixedBaseTable:
             lambda a: a.reshape((W * (1 << c),) + a.shape[2:]), self.table
         )
         packed = _pack_rows(self.f, flat_tab)
-        add = _plane_add(self.f)
-        k = scalars.shape[0]
-        inf_planes = tuple(
-            jnp.broadcast_to(p, (NUM_LIMBS, k))
-            for p in _unpack_planes(
-                self.f, _pack_rows(self.f, JC.point_infinity(self.f, (1,)))
-            )
-        )
+        add = _plane_add(self.f, impl)
 
         def body(w, acc):
             d_w = lax.dynamic_index_in_dim(digits, w, 0, keepdims=False)
             rows = jnp.take(packed, w * (1 << c) + d_w, axis=0)
-            return add(acc, _unpack_planes(self.f, rows))
+            return add(acc, jnp.swapaxes(rows, 0, 1))
 
-        acc = lax.fori_loop(0, W, body, inf_planes)
+        acc = lax.fori_loop(0, W, body, _plane_infinity(self.f, scalars.shape[0]))
         return _planes_to_point(self.f, acc)
 
 
@@ -110,11 +98,12 @@ def g2_table(c: int = 8) -> FixedBaseTable:
     return FixedBaseTable(JC.FQ2_OPS, g2_generator(), c)
 
 
-def fixed_base_mul(f, gen_kind: str, scalars_limbs, c: int = 8):
+def fixed_base_mul(f, gen_kind: str, scalars_limbs, c: int = 8,
+                   impl: str | None = None):
     """s*G for every row of scalars_limbs; gen_kind in {'g1','g2'}."""
     table = g1_table(c) if gen_kind == "g1" else g2_table(c)
     # one jit wrapper per table (a fresh jax.jit each call re-traces)
     fn = table.__dict__.get("_mul_jit")
     if fn is None:
-        fn = table._mul_jit = jax.jit(table.mul)
-    return fn(scalars_limbs)
+        fn = table._mul_jit = jax.jit(table.mul, static_argnums=1)
+    return fn(scalars_limbs, curve_impl(impl))

@@ -1,11 +1,11 @@
-"""Multi-scalar multiplication (Pippenger) over BN254 G1/G2 for TPU.
+"""Multi-scalar multiplication (Pippenger) over BN254 G1/G2 on the device.
 
-TPU-native replacement for libsnark/libff's multi_exp (reference reaches
+Replacement for libsnark/libff's multi_exp (reference reaches
 it inside r1cs_gg_ppzksnark generator/prover; SURVEY.md §2.6 row 3, OpenMP
 `MULTICORE` flag reference CMakeLists.txt:35-39).
 
 Vectorization strategy (XLA static shapes; no data-dependent scatters,
-and -- critically for TPU -- NO sequential scalar point ops anywhere in
+and -- critically for a wide device -- NO sequential scalar point ops in
 the bucket path):
 
   - Scalars are split into W = 256/c signed c-bit digits (window size
@@ -28,9 +28,9 @@ the bucket path):
          HALVES at every level  (s_{t+1} = s_t[:w/2] + s_t[w/2:]),
          eliminating the strided even/odd relayouts that dominated a
          natural-order tree;
-      4. levels live as struct-of-arrays (16, width) limb planes -- the
-         fused Pallas add kernel's native layout -- so no per-call
-         AoS<->SoA conversion exists anywhere in the hot path;
+      4. levels live as struct-of-arrays (48*deg, width) limb planes --
+         the fused point kernels' layout (ec/cuda_curve.py) -- so no
+         per-call AoS<->SoA conversion exists in the hot path;
       5. GLOBAL inclusive prefixes F(t) of the SORTED order are
          materialized only at the W*(B+1) bucket-tail positions (each
          prefix = sum of the <= log2(W*N) aligned blocks named by the
@@ -54,16 +54,18 @@ the bucket path):
     Chunked MSMs (see msm_pow2) accumulate per-window partials across
     chunks and run this ladder ONCE at the end.
 
-Cost model: ~W*N + W*(B+1)*log2(W*N) point-add lanes total, with the
-fused add measured at ~31 ns/lane on v5e.  Prior designs killed by
-measurement on real hardware: sequential bucket adds (~10:1 wall),
-full Hillis-Steele prefix scans (log(N)x the lane-adds), a lax.scan
-over windows (W rounds of narrow launches), and a natural-order tree
-over AoS rows (strided slice relayouts + 3x gather cost ~= 2.5x the
-add time).
+Cost model: ~W*N + W*(B+1)*log2(W*N) point-add lanes total.  Designs
+given up earlier: sequential bucket adds, full Hillis-Steele prefix
+scans (log(N)x the lane-adds), a lax.scan over windows (W rounds of
+narrow launches), and a natural-order tree over AoS rows (strided slice
+relayouts plus three gathers per level).
 
-Multi-chip: shard the point axis; each chip runs this kernel on its
-slice and the per-chip partial results are combined with one
+Point ops: every batched add/double goes through `impl`
+(zklaim_tpu/kernels.py): the fused CUDA kernels on the GPU, XLA's
+lowering of ec/jaxcurve.py elsewhere.  Both give bit-identical points.
+
+Multi-device: shard the point axis; each device runs this pipeline on
+its slice and the per-device partial results are combined with one
 all-gather + fold -- see parallel/ for the shard_map wrapper.
 """
 
@@ -79,30 +81,21 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..ec import jaxcurve as JC
+from ..ec import cuda_curve as CC
 from ..ff.limbs import LIMB_BITS, NUM_LIMBS
+from ..kernels import curve_impl
 
 
 def _ladder_max() -> int:
     """Largest point count routed to the O(1)-graph ladder path.
 
     The flat pipeline's fully unrolled upsweep tree is the fast path on
-    real TPUs but its traced graph grows with W*N — XLA:CPU takes
+    the GPU but its traced graph grows with W*N — XLA:CPU takes
     minutes to compile even tiny instances (and the SPMD partitioner is
     ~20x worse).  Small MSMs (per-shard slices, tiny test circuits,
-    the driver dryrun) instead use msm_ladder: a 256-step fori_loop
+    the multi-device dry run) instead use msm_ladder: a 256-step fori_loop
     whose graph is ~3 point-ops regardless of N."""
     return int(os.environ.get("ZKLAIM_MSM_LADDER_MAX", "512"))
-
-
-def _use_pallas() -> bool:
-    """Fused Pallas kernels on real TPUs (31 ns/lane vs ~2 us/lane
-    through XLA); tests opt in on CPU via interpret mode."""
-    if os.environ.get("ZKLAIM_MSM_PALLAS") == "0":
-        return False
-    return (
-        jax.default_backend() == "tpu"
-        or os.environ.get("ZKLAIM_MSM_PALLAS") == "1"
-    )
 
 
 def signed_digits(scalars, c: int):
@@ -135,99 +128,73 @@ def signed_digits(scalars, c: int):
 
 
 # ---------------------------------------------------------------------------
-# Struct-of-arrays plane representation: a point batch of width n is a
-# tuple of 3*deg (16, n) u32 planes (G1: x,y,z; G2: x0,x1,y0,y1,z0,z1).
+# Struct-of-arrays plane representation: a point batch of width n is one
+# (48*deg, n) u32 array, 16 limb rows per Fq value in the order x, y, z
+# (G2: x.c0, x.c1, y.c0, y.c1, z.c0, z.c1) -- the layout of the point
+# kernels (ec/cuda_curve.py).
 # ---------------------------------------------------------------------------
 
 
-def _plane_add(f):
-    """Batched complete add on plane tuples."""
-    if _use_pallas():
-        from ..ec import pallas_curve as PC
-
-        return lambda p, q: PC.point_add_planes(f.deg, p, q)
+def _plane_add(f, impl):
+    """Batched complete add on planes."""
+    if impl != "xla":
+        return lambda p, q: CC.point_add(f.deg, p, q, impl)
 
     def xla_add(p, q):
-        return _point_to_planes(f, JC.point_add(f, _planes_to_point(f, p), _planes_to_point(f, q)))
+        return _point_to_planes(
+            f, JC.point_add(f, _planes_to_point(f, p), _planes_to_point(f, q))
+        )
 
     return xla_add
 
 
-def _plane_add_halves(f):
-    """cur (16, w) planes -> lo + hi halves summed, (16, w/2) planes.
+def _plane_double(f, impl):
+    if impl != "xla":
+        return lambda p: CC.point_double(f.deg, p, impl)
+    return lambda p: _point_to_planes(f, JC.point_double(f, _planes_to_point(f, p)))
 
-    On TPU the halves are fetched by block index maps inside ONE kernel
-    (ec/pallas_curve.point_add_halves): the XLA lo/hi slice materializa-
-    tions that previously book-ended every upsweep level (2/3 of the
-    level's HBM traffic) disappear."""
-    if _use_pallas():
-        from ..ec import pallas_curve as PC
 
-        def pallas_halves(cur):
-            return PC.point_add_halves(f.deg, cur)
+def _plane_add_halves(f, impl):
+    """(48*deg, w) planes -> lo + hi halves summed, (48*deg, w/2).
 
-        return pallas_halves
-
-    add = _plane_add(f)
+    The kernel reads both halves in place (ec/cuda_curve.point_add_halves),
+    so no level of the upsweep tree materializes lo/hi slices."""
+    if impl != "xla":
+        return lambda cur: CC.point_add_halves(f.deg, cur, impl)
+    add = _plane_add(f, impl)
 
     def xla_halves(cur):
-        w = cur[0].shape[1]
-        lo = tuple(p[:, : w // 2] for p in cur)
-        hi = tuple(p[:, w // 2 :] for p in cur)
-        return add(lo, hi)
+        w = cur.shape[1]
+        return add(cur[:, : w // 2], cur[:, w // 2 :])
 
     return xla_halves
-
-
-def _point_to_planes(f, pt):
-    out = []
-    for c in pt:
-        if f.deg == 1:
-            out.append(jnp.swapaxes(c, 0, 1))
-        else:
-            out.append(jnp.swapaxes(c[:, 0, :], 0, 1))
-            out.append(jnp.swapaxes(c[:, 1, :], 0, 1))
-    return tuple(out)
-
-
-def _planes_to_point(f, planes):
-    if f.deg == 1:
-        return tuple(jnp.swapaxes(p, 0, 1) for p in planes)
-    coords = []
-    for i in range(3):
-        c0 = jnp.swapaxes(planes[2 * i], 0, 1)
-        c1 = jnp.swapaxes(planes[2 * i + 1], 0, 1)
-        coords.append(jnp.stack([c0, c1], axis=1))
-    return tuple(coords)
-
-
-def _plane_infinity(f, width: int):
-    inf = JC.point_infinity(f, (1,))
-    planes = _point_to_planes(f, inf)
-    return tuple(jnp.broadcast_to(p, (NUM_LIMBS, width)) for p in planes)
-
-
-def _plane_select(mask, a, b):
-    """mask: (width,) bool; a, b: plane tuples."""
-    return tuple(jnp.where(mask[None, :], x, y) for x, y in zip(a, b))
-
-
-def _plane_take(planes, idx):
-    return tuple(jnp.take(p, idx, axis=1) for p in planes)
 
 
 def _pack_rows(f, points):
     """Projective AoS pytree (N, ...) -> packed (N, 48*deg) u32 rows."""
     n = points[0].shape[0]
-    cols = [c.reshape(n, -1) for c in points]
-    return jnp.concatenate(cols, axis=1)
+    return jnp.concatenate([c.reshape(n, -1) for c in points], axis=1)
 
 
-def _unpack_planes(f, rows):
-    """(M, 48*deg) packed rows -> plane tuple (3*deg x (16, M))."""
-    flat = jnp.swapaxes(rows, 0, 1)                     # (48*deg, M)
-    k = NUM_LIMBS
-    return tuple(flat[i * k : (i + 1) * k] for i in range(3 * f.deg))
+def _point_to_planes(f, pt):
+    return jnp.swapaxes(_pack_rows(f, pt), 0, 1)
+
+
+def _planes_to_point(f, planes):
+    rows = jnp.swapaxes(planes, 0, 1)                   # (n, 48*deg)
+    k = NUM_LIMBS * f.deg
+    shape = (rows.shape[0],) + ((2, NUM_LIMBS) if f.deg == 2 else (NUM_LIMBS,))
+    return tuple(rows[:, i * k : (i + 1) * k].reshape(shape) for i in range(3))
+
+
+def _plane_infinity(f, width: int):
+    inf = _point_to_planes(f, JC.point_infinity(f, (1,)))
+    return jnp.broadcast_to(inf, (inf.shape[0], width))
+
+
+def _plane_select(mask, a, b):
+    """mask: (width,) bool; a, b: planes."""
+    return jnp.where(mask[None, :], a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -270,7 +237,7 @@ def _revbits_dyn(idx, nb: int):
 # ---------------------------------------------------------------------------
 
 
-def _window_partials(f, points, scalars, c):
+def _window_partials(f, points, scalars, c, impl):
     """Flat-batch bucket phase: per-window (F(t_B), sum_{b<B} F(t_b)).
 
     Returns (tot_w, head_w) plane tuples with lane width W.  These are
@@ -285,7 +252,7 @@ def _window_partials(f, points, scalars, c):
     k = M.bit_length() - 1
     if (1 << k) != M:
         raise ValueError("flat batch W*N must be a power of two (pad N)")
-    add = _plane_add(f)
+    add = _plane_add(f, impl)
 
     # tripled packed table [P | -P | inf]; gather indices pre-resolve
     # digit sign (row + n) and digit zero (row 2n)
@@ -306,23 +273,12 @@ def _window_partials(f, points, scalars, c):
 
     # bit-reversed storage: all upsweep levels pair contiguous halves
     sidx_br = _apply_bitrev(sidx, k)
-    pts = _unpack_planes(f, jnp.take(table, sidx_br, axis=0))
+    pts = jnp.swapaxes(jnp.take(table, sidx_br, axis=0), 0, 1)
 
-    # slice-free fused halves while the width stays lane-tileable; the
-    # narrow tail levels fall back to the generic add
-    add_halves = _plane_add_halves(f)
-
+    add_halves = _plane_add_halves(f, impl)
     levels = [pts]
-    w = M
-    while w > 1:
-        cur = levels[-1]
-        if _use_pallas() and w >= 256:
-            levels.append(add_halves(cur))
-        else:
-            lo = tuple(p[:, : w // 2] for p in cur)
-            hi = tuple(p[:, w // 2 :] for p in cur)
-            levels.append(add(lo, hi))
-        w //= 2
+    while levels[-1].shape[1] > 1:
+        levels.append(add_halves(levels[-1]))
 
     # global prefixes at every bucket tail: t_{w,b} = last sorted index
     # with key <= w*(B+1)+b; block j of level t lives at storage
@@ -338,57 +294,41 @@ def _window_partials(f, points, scalars, c):
         wt = max(1, M >> t)
         nat = jnp.clip((m >> t) - 1, 0, wt - 1)
         store = _revbits_dyn(nat, k - t) if k - t > 0 else nat
-        node = _plane_take(lvl, store)
+        node = jnp.take(lvl, store, axis=1)
         bit = ((m >> t) & 1) == 1
         acc = _plane_select(bit, add(acc, node), acc)
 
     # Abel summation per window; window-start corrections cancel (see
     # module docstring), leaving  B*F(t_{w,B}) - sum_{b<B} F(t_{w,b}).
-    grid = tuple(p.reshape(NUM_LIMBS, W, B + 1) for p in acc)
-    tot_w = tuple(p[:, :, B] for p in grid)
-    heads = tuple(
-        jnp.swapaxes(p[:, :, :B], 1, 2).reshape(NUM_LIMBS, B * W)
-        for p in grid
-    )                                                      # b-major, w-minor
-    width = B
-    while width > 1:
-        half = width // 2
-        if _use_pallas() and half * W >= 256 and (half * W) % 128 == 0:
-            heads = add_halves(heads)
-        else:
-            lo = tuple(p[:, : half * W] for p in heads)
-            hi = tuple(p[:, half * W :] for p in heads)
-            heads = add(lo, hi)
-        width = half
-    return tot_w, heads                                    # (16, W) planes
+    rows = acc.shape[0]
+    grid = acc.reshape(rows, W, B + 1)
+    tot_w = grid[:, :, B]
+    heads = jnp.swapaxes(grid[:, :, :B], 1, 2).reshape(rows, B * W)  # b-major
+    while heads.shape[1] > W:
+        heads = add_halves(heads)
+    return tot_w, heads                                    # (48*deg, W)
 
 
-def _finish(f, tot_planes, head_planes, c):
-    """(16, W) plane partials -> final point: doublings + Horner ladder."""
-    tot_w = _planes_to_point(f, tot_planes)
-    head_w = _planes_to_point(f, head_planes)
-    W = jax.tree.leaves(tot_w)[0].shape[0]
-    window_pts = JC.point_add(
-        f, _dbl_k(f, tot_w, c - 1), JC.point_neg(f, head_w)
+def _finish(f, tot_planes, head_planes, c, impl):
+    """(48*deg, W) plane partials -> final point: doublings + Horner ladder."""
+    add = _plane_add(f, impl)
+    dbl = _plane_double(f, impl)
+
+    def dbl_k(p, k):
+        return lax.fori_loop(0, k, lambda i, a: dbl(a), p) if k else p
+
+    W = tot_planes.shape[1]
+    neg_head = _point_to_planes(
+        f, JC.point_neg(f, _planes_to_point(f, head_planes))
     )
+    window = add(dbl_k(tot_planes, c - 1), neg_head)
 
     def horner(w, acc):
-        acc = _dbl_k(f, acc, c)
-        pw = jax.tree.map(
-            lambda a: lax.dynamic_index_in_dim(a, W - 1 - w, 0, keepdims=False),
-            window_pts,
-        )
-        return JC.point_add(f, acc, pw)
+        pw = lax.dynamic_slice_in_dim(window, W - 1 - w, 1, axis=1)
+        return add(dbl_k(acc, c), pw)
 
-    init = JC.point_infinity(f)
-    return lax.fori_loop(0, W, horner, init)
-
-
-def _dbl_k(f, p, k: int):
-    """k batched doublings (fori_loop: one instantiation)."""
-    if k == 0:
-        return p
-    return lax.fori_loop(0, k, lambda i, a: JC.point_double(f, a), p)
+    acc = lax.fori_loop(0, W, horner, _plane_infinity(f, 1))
+    return jax.tree.map(lambda a: a[0], _planes_to_point(f, acc))
 
 
 # Max point-axis batch per compiled flat pipeline.  Two reasons:
@@ -399,26 +339,28 @@ def _dbl_k(f, p, k: int):
 MAX_CHUNK = {1: 1 << 16, 2: 1 << 15}
 
 
-def _msm_chunked(f, pts_c, sc_c, c):
+def _msm_chunked(f, pts_c, sc_c, c, impl):
     """Scan the bucket phase over (k, chunk, ...) stacked chunks, summing
     the W-wide window partials; ONE Horner finish at the end."""
     W = 256 // c
-    add = _plane_add(f)
+    add = _plane_add(f, impl)
 
     def body(acc, xs):
         pts, sc = xs
-        tot, head = _window_partials(f, pts, sc, c)
+        tot, head = _window_partials(f, pts, sc, c, impl)
         acc_t, acc_h = acc
         return (add(acc_t, tot), add(acc_h, head)), None
 
     init = (_plane_infinity(f, W), _plane_infinity(f, W))
     (tot, head), _ = lax.scan(body, init, (pts_c, sc_c))
-    return _finish(f, tot, head, c)
+    return _finish(f, tot, head, c, impl)
 
 
-def msm_pow2(f, points, scalars, c: int = 8):
+def msm_pow2(f, points, scalars, c: int = 8, impl: str | None = None):
     """msm() with the point axis padded to a power of two and large
-    inputs split into fixed-size chunks (see MAX_CHUNK)."""
+    inputs split into fixed-size chunks (see MAX_CHUNK).  impl: see
+    zklaim_tpu/kernels.py (None: the platform's choice)."""
+    impl = curve_impl(impl)
     n = jax.tree.leaves(points)[0].shape[0]
     n2 = max(2, 1 << (n - 1).bit_length()) if n > 1 else 2
     chunk = MAX_CHUNK[f.deg]
@@ -435,11 +377,11 @@ def msm_pow2(f, points, scalars, c: int = 8):
         )
         scalars = jnp.pad(scalars, ((0, n2 - n), (0, 0)))
     if n2 <= chunk:
-        return _msm_jit(f, points, scalars, c)
+        return _msm_jit(f, points, scalars, c, impl)
     k = n2 // chunk
     pts_c = jax.tree.map(lambda a: a.reshape((k, chunk) + a.shape[1:]), points)
     sc_c = scalars.reshape(k, chunk, scalars.shape[-1])
-    return _msm_chunked_jit(f, pts_c, sc_c, c)
+    return _msm_chunked_jit(f, pts_c, sc_c, c, impl)
 
 
 def msm_ladder(f, points, scalars):
@@ -476,18 +418,18 @@ def msm_ladder(f, points, scalars):
     return jax.tree.map(lambda a: a[0], out)
 
 
-def msm_flat(f, points, scalars, c: int = 8):
+def msm_flat(f, points, scalars, c: int = 8, impl: str = "xla"):
     """The flat single-sort Pippenger pipeline (module docstring).
 
     N * (256/c) must be a power of two (callers pad via msm_pow2).
-    Traced-graph size grows with W*N — TPU-only in practice; use msm()
-    for automatic small-N dispatch.
+    Traced-graph size grows with W*N, so XLA:CPU compiles it slowly;
+    use msm() for automatic small-N dispatch.
     """
-    tot_w, head_w = _window_partials(f, points, scalars, c)
-    return _finish(f, tot_w, head_w, c)
+    tot_w, head_w = _window_partials(f, points, scalars, c, impl)
+    return _finish(f, tot_w, head_w, c, impl)
 
 
-def msm(f, points, scalars, c: int = 8):
+def msm(f, points, scalars, c: int = 8, impl: str = "xla"):
     """Multi-scalar multiplication: sum_i scalars[i] * points[i].
 
     f: JC.FQ_OPS (G1) or JC.FQ2_OPS (G2) -- pass statically under jit.
@@ -503,11 +445,11 @@ def msm(f, points, scalars, c: int = 8):
     n = jax.tree.leaves(points)[0].shape[0]
     if n <= _ladder_max():
         return msm_ladder(f, points, scalars)
-    return msm_flat(f, points, scalars, c)
+    return msm_flat(f, points, scalars, c, impl)
 
 
 # Module-level jit wrappers: a fresh jax.jit() per call would re-trace the
 # (large) windowed graph on every invocation even when the compiled
 # executable is cached persistently.
-_msm_jit = jax.jit(msm, static_argnums=(0, 3))
-_msm_chunked_jit = jax.jit(_msm_chunked, static_argnums=(0, 3))
+_msm_jit = jax.jit(msm, static_argnums=(0, 3, 4))
+_msm_chunked_jit = jax.jit(_msm_chunked, static_argnums=(0, 3, 4))

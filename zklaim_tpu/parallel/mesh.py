@@ -1,4 +1,4 @@
-"""Device-mesh helpers for multi-chip and multi-host execution.
+"""Device-mesh helpers for multi-device and multi-host execution.
 
 The reference has NO distributed execution (single-process CPU library,
 optional OpenMP; SURVEY.md §2.6 last row) -- this subsystem is new,
@@ -8,11 +8,10 @@ batched proving adds a 'batch' axis on top (dist design per SURVEY.md
 §7 step 7).
 
 Multi-host: `init_distributed()` wires `jax.distributed` process groups
-(coordinator + rank from env or TPU metadata), after which
+from an explicit coordinator, process count and rank, after which
 `jax.devices()` spans every host and the same mesh constructors produce
-global meshes.  `make_host_mesh()` builds the 2-D (host, chip) mesh that
-keeps intra-host collectives on ICI and crosses DCN only on the host
-axis -- shard point/constraint axes over 'chip' first.
+global meshes.  `make_host_mesh()` builds the 2-D (host, chip) mesh
+grouping devices by process; on one host it is (1, n).
 """
 
 from __future__ import annotations
@@ -35,10 +34,10 @@ def init_distributed(
     """Initialize the multi-host process group (idempotent).
 
     Resolution order per argument: explicit parameter, then env vars
-    ZKLAIM_COORDINATOR / ZKLAIM_NUM_PROCESSES / ZKLAIM_PROCESS_ID, then
-    the TPU pod metadata jax.distributed autodetects.  Single-process
-    runs (nothing configured) are a no-op returning False, so every
-    entry point may call this unconditionally.
+    ZKLAIM_COORDINATOR / ZKLAIM_NUM_PROCESSES / ZKLAIM_PROCESS_ID.
+    Nothing is detected: single-process runs (nothing configured) are a
+    no-op returning False, so every entry point may call this
+    unconditionally.
     """
     if _DIST_STATE["initialized"]:
         return True
@@ -54,11 +53,7 @@ def init_distributed(
         int(env_pid) if env_pid else None
     )
     if coordinator_address is None and num_processes is None:
-        # No explicit config; on TPU pods jax.distributed can autodetect,
-        # but calling initialize() on a single-host CPU/1-chip run fails,
-        # so only auto-init when the platform reports a pod environment.
-        if os.environ.get("TPU_WORKER_HOSTNAMES") is None:
-            return False
+        return False
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
@@ -81,9 +76,9 @@ def make_host_mesh(axes: tuple[str, str] = ("host", "chip")) -> Mesh:
     """2-D (num_hosts, chips_per_host) mesh from the global device set.
 
     Devices are grouped by owning process so the trailing axis is always
-    intra-host (ICI); collectives over `axes[0]` cross hosts (DCN).
-    Falls back to a (1, n) mesh in single-process runs, which makes the
-    sharding layouts identical whether or not a pod is attached.
+    intra-host; collectives over `axes[0]` cross hosts.  A single-process
+    run gives a (1, n) mesh, so the sharding layouts are the same on one
+    host as on several.
     """
     devs = jax.devices()
     by_proc: dict[int, list] = {}
@@ -101,6 +96,5 @@ def make_host_mesh(axes: tuple[str, str] = ("host", "chip")) -> Mesh:
 def flat_shard_axis(mesh: Mesh) -> tuple[str, ...]:
     """The axis names to shard a 1-D data dimension over `mesh` --
     ('host', 'chip') for host meshes, ('shards',) for flat ones -- in
-    PartitionSpec order (host-major keeps chip-adjacent data adjacent,
-    so boundary exchanges ride ICI)."""
+    PartitionSpec order (host-major keeps one host's data adjacent)."""
     return tuple(mesh.axis_names)

@@ -1,17 +1,17 @@
-"""Multi-chip MSM: points/scalars sharded, one point exchanged per chip.
+"""Multi-device MSM: points/scalars sharded, one point exchanged per device.
 
-TPU-native scale-out of the Pippenger kernel (SURVEY.md §2.6: "sharded
-MSM (points/scalars partitioned, bucket sums reduced ... over ICI)").
-Design: each chip runs the local MSM kernel on its slice of the point
-axis (embarrassingly parallel -- the expensive part), then the per-chip
+Scale-out of the Pippenger pipeline (SURVEY.md §2.6: "sharded MSM
+(points/scalars partitioned, bucket sums reduced ...)").  Design: each
+device runs the local MSM on its slice of the point axis
+(embarrassingly parallel -- the expensive part), then the per-device
 partial results (ONE projective point each, ~3 KiB) are all-gathered
-and folded with the complete point-add.  Communication is O(chips),
+and folded with the complete point-add.  Communication is O(devices),
 independent of N.
 
 Works over 1-D ('shards') meshes and 2-D (host, chip) meshes from
 parallel.mesh.make_host_mesh: pass the axis name(s) the point dimension
-is sharded over; the final fold's all-gather then spans ICI within a
-host and DCN across hosts -- ~3 KiB per chip either way.  (With a tuple
+is sharded over; the final fold's all-gather spans every device named
+-- ~3 KiB per device.  (With a tuple
 of axis names, lax.all_gather already emits ONE stacked leading dim of
 size prod(axis sizes) -- verified on the virtual mesh -- so no reshape
 is needed after the gather.)
@@ -19,8 +19,8 @@ is needed after the gather.)
 The local kernel is msm.pippenger.msm, whose small-N dispatch matters
 here: per-shard slices are usually tiny, and the O(1)-graph ladder path
 keeps the SPMD program compilable in seconds on XLA:CPU (the unrolled
-flat pipeline took minutes and timed out the driver dryrun).  The
-shard_map body is jitted ONCE per (mesh, axis, shapes, c) and cached.
+flat pipeline takes minutes there).  The shard_map body is jitted ONCE
+per (mesh, axis, shapes, c) and cached.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Distributed NTT over a device mesh: the four-step (Bailey) algorithm.
 
-TPU-native scale-out of the radix-2 NTT (SURVEY.md §2.6: "distributed
+Scale-out of the radix-2 NTT (SURVEY.md §2.6: "distributed
 NTT (butterfly stages with all-to-all)").  Factor n = n1*n2 and view the
 coefficient vector as a row-major (n1, n2) matrix:
 
   1. length-n1 NTTs along COLUMNS  -- local when the matrix is sharded
-     over the column axis (each chip owns full columns);
+     over the column axis (each device owns full columns);
   2. twiddle by w_n^(k1*i2)        -- local elementwise multiply;
   3. ONE all_to_all transposing the shard axis: (n1, n2/S) -> (n1/S, n2);
   4. length-n2 NTTs along ROWS     -- local.
@@ -14,7 +14,7 @@ The result lands in TRANSPOSED order: out[k1, k2] = X_hat[k2*n1 + k1],
 sharded over k1.  The inverse transform consumes exactly that layout and
 returns natural order, so an ntt -> pointwise -> intt pipeline (the
 Groth16 H computation) pays only two all_to_alls and never reorders.
-Communication volume: n/S elements per chip per transform, on ICI.
+Communication volume: n/S elements per device per transform.
 """
 
 from __future__ import annotations

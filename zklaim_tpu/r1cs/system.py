@@ -1,6 +1,6 @@
 """R1CS constraint-system builder (protoboard equivalent).
 
-TPU-native replacement for libsnark gadgetlib1's `protoboard`,
+Replacement for libsnark gadgetlib1's `protoboard`,
 `pb_variable`, `pb_linear_combination` and `r1cs_constraint_system`
 (used by the reference at zklaim/zklaim_gadget.cpp:154-360 and
 zklaim/snark.cpp:82-87; SURVEY.md §2.6 row 7).

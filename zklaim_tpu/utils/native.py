@@ -2,30 +2,52 @@
 
 Provides SHA256, ECDSA-Ed25519 and the context wire codec as native
 code, mirroring the reference's native host layer (libgcrypt + OpenSSL;
-reference zklaim/zklaim_hash.c, zklaim/zklaim_ecc.c).  Every entry point
-degrades gracefully: if the library is absent (not built), callers fall
-back to the pure-Python implementations -- behavior is identical, only
-speed differs.  Build with `make -C native`.
+reference zklaim/zklaim_hash.c, zklaim/zklaim_ecc.c).
+
+The library is built from source (`make -C native`) at first use, when
+it is missing or older than a source file (utils/build.py).  Every entry
+point degrades gracefully: if the library cannot be built or loaded, callers fall back
+to the pure-Python implementations -- behavior is identical, only speed
+differs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
+import subprocess
+
+from .build import ROOT as _ROOT, build_if_stale
 
 _LIB = None
 _TRIED = False
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SO_PATH = os.path.join(_ROOT, "native", "libzklaim_host.so")
+_NATIVE = os.path.join(_ROOT, "native")
+_SO_PATH = os.path.join(_NATIVE, "libzklaim_host.so")
+
+
+def build() -> bool:
+    """Run `make -C native` if the library is missing or stale.  True if
+    an up-to-date library exists afterwards."""
+    sources = glob.glob(os.path.join(_NATIVE, "*.cpp")) + glob.glob(
+        os.path.join(_NATIVE, "*.h")
+    ) + [os.path.join(_NATIVE, "Makefile")]
+    try:
+        build_if_stale(_SO_PATH, sources, ["make", "-s", "-C", _NATIVE], 300)
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def get_lib():
-    """The loaded library or None (missing/unbuildable)."""
+    """The loaded library, built first if needed; None if unavailable."""
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
     _TRIED = True
+    if not build():
+        return None
     try:
         lib = ctypes.CDLL(_SO_PATH)
     except OSError:

@@ -3,7 +3,7 @@
 The reference's observability is libsnark/libff's profiling prints,
 which it normally suppresses and re-enables with a DEBUG define
 (zklaim/libsnark_wrapper.cpp:196-203,21; SURVEY.md §5 "Tracing").
-TPU-native equivalent: explicit phase timers with the benchmark CSV's
+Equivalent here: explicit phase timers with the benchmark CSV's
 phase names (issuer/prover/verifier, main_benchmark.c:150-164) plus
 hooks into jax.profiler for device traces.
 
